@@ -1,11 +1,11 @@
-// Shared declarations for the sphereflake_tpu native runtime library.
+// Shared declarations for the sphereflake native runtime library.
 //
-// TPU-native counterpart of the reference's C++ CPU subsystems: the
+// Counterpart of the reference's C++ CPU subsystems: the
 // Sobol sampler (reference: Sobol.cpp — Gruenschloss scalar sampler over
 // the Joe-Kuo table), the mt19937 noise source (SSAO.cpp:144-163), and
-// the display path (GL window -> here: a PNG encoder, since the TPU
+// the display path (GL window -> here: a PNG encoder, since this
 // build is headless). Exposed as a C ABI consumed from Python via
-// ctypes (sphereflake_tpu/runtime/native.py).
+// ctypes (sphereflake/runtime/native.py).
 #ifndef SPHEREFLAKE_NATIVE_COMMON_H
 #define SPHEREFLAKE_NATIVE_COMMON_H
 

@@ -1,7 +1,7 @@
 // Dependency-free PNG (RGB8) encoder.
 //
 // The reference presents frames through GLFW/OpenGL (main.cpp:301-335);
-// the headless TPU build writes PNGs instead. This encoder produces a
+// this headless build writes PNGs instead. This encoder produces a
 // valid zlib stream using fixed-Huffman deflate with a per-row Paeth
 // filter — small output, no external libraries, fast enough to keep up
 // with interactive rendering.

@@ -1,0 +1,18 @@
+from sphereflake.parallel.frameless import (  # noqa: F401
+    ShardedTileState,
+    sharded_tiles_as_single,
+    sharded_tiles_init,
+    sharded_tiles_step,
+)
+from sphereflake.parallel.mesh import make_mesh  # noqa: F401
+from sphereflake.parallel.shared_bin import (  # noqa: F401
+    render_gbuffer_shared,
+    shared_bin_supported,
+)
+from sphereflake.parallel.sharded import (  # noqa: F401
+    fit_step_sharded,
+    make_frame_mesh,
+    render_frame_sharded,
+    render_frames_dp,
+    render_gbuffer_sharded,
+)

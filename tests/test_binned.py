@@ -1,7 +1,7 @@
 """Parity tests for the binned traversal (global expansion + tile
-binning + pairs kernel). The binning must be a conservative superset of
-the per-tile frustum cull, so results match the per-tile pallas kernel
-exactly up to f32 winner ties."""
+binning + trace kernel). The binning must be a conservative superset of
+every pixel's candidates, so results match the per-tile XLA traversal
+up to f32 winner ties."""
 
 import dataclasses
 
@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sphereflake_tpu.config import RenderConfig, default_scene
-from sphereflake_tpu.render import render_gbuffer
+from sphereflake.config import RenderConfig, default_scene
+from sphereflake.render import render_gbuffer
 
 
 def _cfg(algorithm, **kw):
@@ -24,15 +24,21 @@ def _cfg(algorithm, **kw):
 
 
 @pytest.mark.parametrize("depth", [0, 2, 3])
-def test_binned_matches_pallas(depth):
+def test_binned_matches_fast_path(depth):
+    """Against the XLA fast path. Both culls are conservative, so the
+    candidate sets match; the two paths evaluate the intersection in
+    different f32 forms, and at depth 3 a few tangent grazes on small
+    spheres flip winners (both paths deviate from the float64 golden
+    there by the same ~0.3%), so t agreement is bounded as it is
+    against the strict path below."""
     scene = default_scene()
     gb = render_gbuffer(scene, _cfg("binned", max_depth=depth))
-    gp = render_gbuffer(scene, _cfg("pallas", max_depth=depth))
-    hb, hp = np.asarray(gb.hit), np.asarray(gp.hit)
-    assert (hb == hp).mean() > 0.999
-    both = hb & hp
-    tb, tp = np.asarray(gb.min_t)[both], np.asarray(gp.min_t)[both]
-    assert np.isclose(tb, tp, rtol=1e-4, atol=1e-4).mean() > 0.999
+    gf = render_gbuffer(scene, _cfg("fast", max_depth=depth))
+    hb, hf = np.asarray(gb.hit), np.asarray(gf.hit)
+    assert (hb == hf).mean() > 0.999
+    both = hb & hf
+    tb, tf = np.asarray(gb.min_t)[both], np.asarray(gf.min_t)[both]
+    assert np.isclose(tb, tf, rtol=1e-4, atol=1e-4).mean() > 0.995
 
 
 def test_binned_off_center_camera():
@@ -84,16 +90,15 @@ def test_banded_matches_whole_frame():
     than in the flat program: ray dirs differing by 1 ulp flip
     TANGENT-GRAZE candidates (disc ~ 0) between hit and miss, which
     can move min_t by the gap to the next surface at a handful of
-    silhouette pixels. On real TPU hardware the Mosaic kernel is
-    compiled once and banding is bit-identical (tools/tpu_validate.py
-    checks that); what this test pins is the banding/offset LOGIC —
-    a real offset bug breaks whole tile rows, not O(10) pixels."""
+    silhouette pixels. What this test pins is the banding/offset
+    LOGIC — a real offset bug breaks whole tile rows, not O(10)
+    pixels."""
     import dataclasses
 
     import numpy as np
 
-    from sphereflake_tpu.config import RenderConfig, default_scene
-    from sphereflake_tpu.render import render_gbuffer
+    from sphereflake.config import RenderConfig, default_scene
+    from sphereflake.render import render_gbuffer
 
     scene = default_scene()
     cfg = RenderConfig(width=256, height=128, max_depth=3, tile_h=32,
@@ -125,8 +130,8 @@ def test_deep_config_matches_shallow_on_shallow_scene():
     output must be identical to the shallow config."""
     import numpy as np
 
-    from sphereflake_tpu.config import RenderConfig, default_scene
-    from sphereflake_tpu.render import render_gbuffer
+    from sphereflake.config import RenderConfig, default_scene
+    from sphereflake.render import render_gbuffer
 
     scene = default_scene()
     # The default pose's LOD cut plateaus at level 5 (closest hit ~7.2,
@@ -154,13 +159,13 @@ def dive_scene(hover: float = 0.002):
     LOD cut alone decides the depth reached — no bare-pole luck."""
     import numpy as np
 
-    from sphereflake_tpu.config import (
+    from sphereflake.config import (
         CameraParams,
         FractalParams,
         SSAOParams,
         SceneParams,
     )
-    from sphereflake_tpu.models.sphereflake import child_templates, root_frame
+    from sphereflake.models.sphereflake import child_templates, root_frame
 
     fractal = FractalParams.reference_default()
     templates = np.asarray(child_templates(fractal))
@@ -212,8 +217,8 @@ def test_deep_dive_reaches_level_8_plus():
     codes (VERDICT r2 item 6)."""
     import numpy as np
 
-    from sphereflake_tpu.config import RenderConfig
-    from sphereflake_tpu.render import render_gbuffer
+    from sphereflake.config import RenderConfig
+    from sphereflake.render import render_gbuffer
 
     scene = dive_scene()
     cfg = RenderConfig(width=64, height=32, max_depth=10, tile_h=32,
@@ -242,8 +247,8 @@ def test_depth7_boundary_parity():
     split at all."""
     import numpy as np
 
-    from sphereflake_tpu.config import RenderConfig
-    from sphereflake_tpu.render import render_gbuffer
+    from sphereflake.config import RenderConfig
+    from sphereflake.render import render_gbuffer
 
     scene = dive_scene()  # pose where level 7 is actually reached
     kw = dict(width=64, height=32, max_depth=7, tile_h=32, tile_w=32,
@@ -273,8 +278,8 @@ def test_depth13_boundary_well_formed():
     import numpy as np
     import pytest
 
-    from sphereflake_tpu.config import RenderConfig
-    from sphereflake_tpu.render import render_gbuffer
+    from sphereflake.config import RenderConfig
+    from sphereflake.render import render_gbuffer
 
     # Depth-13 beads (radius 3^-13 ~ 6.3e-7) need a hover of ~1e-5 to
     # subtend whole pixels at 64x32/60-deg fov. The f32 frame chain is
@@ -319,9 +324,9 @@ def test_interior_pose_pair_count_bounded():
 
     import jax.numpy as jnp
 
-    from sphereflake_tpu.config import RenderConfig, default_scene
-    from sphereflake_tpu.models.sphereflake import child_templates, root_frame
-    from sphereflake_tpu.ops.binned import binned_pairs
+    from sphereflake.config import RenderConfig, default_scene
+    from sphereflake.models.sphereflake import child_templates, root_frame
+    from sphereflake.ops.binned import binned_pairs
 
     cfg = RenderConfig(width=256, height=128, max_depth=4, tile_h=32,
                        tile_w=32, algorithm="binned")
@@ -356,13 +361,13 @@ def test_decode_tiles_window_composes_bit_identically():
     import jax.numpy as jnp
     import numpy as np
 
-    from sphereflake_tpu.camera import corner_rays, tile_frustum_planes
-    from sphereflake_tpu.config import RenderConfig, default_scene
-    from sphereflake_tpu.models.sphereflake import (
+    from sphereflake.camera import corner_rays, tile_frustum_planes
+    from sphereflake.config import RenderConfig, default_scene
+    from sphereflake.models.sphereflake import (
         child_templates,
         root_frame,
     )
-    from sphereflake_tpu.ops.binned import (
+    from sphereflake.ops.binned import (
         _decode_tiles_window,
         bin_geometry,
         corner_basis,
@@ -406,15 +411,15 @@ def test_decode_tiles_window_composes_bit_identically():
 
 def test_non_tile_multiple_frame_pads_and_crops():
     """The pad/crop path (padded extrapolation rows, `_untile` crop)
-    had no CPU coverage at a non-tile-multiple size — the TPU bench
-    exercises it daily (1080 -> 1088 rows) but the suite never did.
+    had no CPU coverage at a non-tile-multiple size — the 1080p bench
+    exercises it (1080 -> 1088 rows) but the suite never did.
     A 100x60 binned render must match the NumPy golden tracer on the
     REAL pixels, and the sharded path must agree at an uneven mesh."""
     import numpy as np
 
-    from sphereflake_tpu.config import RenderConfig, default_scene
-    from sphereflake_tpu.models import golden
-    from sphereflake_tpu.render import render_gbuffer
+    from sphereflake.config import RenderConfig, default_scene
+    from sphereflake.models import golden
+    from sphereflake.render import render_gbuffer
 
     scene = default_scene()
     cfg = RenderConfig(width=100, height=60, max_depth=2, tile_h=32,
@@ -435,7 +440,7 @@ def test_non_tile_multiple_frame_pads_and_crops():
 
     import jax
 
-    from sphereflake_tpu.parallel import make_mesh, render_gbuffer_sharded
+    from sphereflake.parallel import make_mesh, render_gbuffer_sharded
 
     mesh = make_mesh(jax.devices()[:8], shape=(2, 4))
     gb_s = render_gbuffer_sharded(scene, cfg, mesh)

@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from sphereflake_tpu.config import RenderConfig, default_scene
-from sphereflake_tpu.fit import fit
-from sphereflake_tpu.render import render_gbuffer
-from sphereflake_tpu.runtime.checkpoint import load_checkpoint, save_checkpoint
-from sphereflake_tpu.runtime.progressive import (
+from sphereflake.config import RenderConfig, default_scene
+from sphereflake.fit import fit
+from sphereflake.render import render_gbuffer
+from sphereflake.runtime.checkpoint import load_checkpoint, save_checkpoint
+from sphereflake.runtime.progressive import (
     progressive_init,
     progressive_step,
 )

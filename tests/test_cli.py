@@ -3,7 +3,7 @@
 
 import numpy as np
 
-from sphereflake_tpu.cli import main
+from sphereflake.cli import main
 
 
 def _common(*extra):
@@ -30,10 +30,10 @@ def test_render_writes_png_and_gbuffer(tmp_path):
     assert data["min_t"].shape == (64, 96)
 
 
-def test_render_pallas_algorithm(tmp_path):
+def test_render_binned_algorithm(tmp_path):
     out = tmp_path / "p.png"
     rc = main(_common("--output", str(out))[:-4] + [
-        "--algorithm", "pallas", "--tile", "32x32", "--output", str(out),
+        "--algorithm", "binned", "--tile", "32x32", "--output", str(out),
     ])
     assert rc == 0
     assert out.stat().st_size > 0
@@ -41,7 +41,7 @@ def test_render_pallas_algorithm(tmp_path):
 
 def test_bad_tile_is_an_error(tmp_path):
     rc = main(_common("--output", str(tmp_path / "x.png"))[:-4] + [
-        "--algorithm", "pallas", "--tile", "64x128",
+        "--algorithm", "binned", "--tile", "64x128",
         "--output", str(tmp_path / "x.png"),
     ])
     assert rc == 2
@@ -113,8 +113,8 @@ def test_look_at_origin_actually_aims_at_origin():
     import jax.numpy as jnp
     import numpy as np
 
-    from sphereflake_tpu.config import CameraParams
-    from sphereflake_tpu.runtime.animate import (
+    from sphereflake.config import CameraParams
+    from sphereflake.runtime.animate import (
         _look_at_origin,
         camera_forward,
     )
@@ -139,8 +139,8 @@ def test_capacity_ladder_progression():
 
     import pytest
 
-    from sphereflake_tpu.config import RenderConfig
-    from sphereflake_tpu.render import grow_capacity
+    from sphereflake.config import RenderConfig
+    from sphereflake.render import grow_capacity
 
     cfg = RenderConfig(width=320, height=192, max_depth=6, tile_h=32,
                        tile_w=32, algorithm="binned")
@@ -197,8 +197,8 @@ def test_cli_mesh_flag(tmp_path):
 
 
 def test_progressive_tile_unit(tmp_path, capsys):
-    """The TPU-native frameless default: whole-tile refresh through
-    the fused kernel (--progressive-unit tile, binned only)."""
+    """The frameless default: whole-tile refresh through the trace
+    kernel (--progressive-unit tile, binned only)."""
     out = tmp_path / "pt.png"
     ck = tmp_path / "pt.npz"
     rc = main([

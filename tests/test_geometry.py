@@ -7,11 +7,11 @@ import math
 import numpy as np
 import jax.numpy as jnp
 
-from sphereflake_tpu.config import CameraParams, FractalParams
-from sphereflake_tpu.camera import camera_scaling, corner_rays, ray_directions
-from sphereflake_tpu.models.sphereflake import child_templates, level_radius, root_frame
-from sphereflake_tpu.models import golden
-from sphereflake_tpu.ops.transforms import (
+from sphereflake.config import CameraParams, FractalParams
+from sphereflake.camera import camera_scaling, corner_rays, ray_directions
+from sphereflake.models.sphereflake import child_templates, level_radius, root_frame
+from sphereflake.models import golden
+from sphereflake.ops.transforms import (
     euler_xyz_rotation,
     rt_multiply,
     rt_translation,

@@ -5,7 +5,7 @@ import math
 
 import numpy as np
 
-from sphereflake_tpu.models import golden
+from sphereflake.models import golden
 
 
 def test_single_ray_hits_root_sphere_closed_form():

@@ -71,8 +71,8 @@ def test_two_process_render_and_fit(tmp_path):
     # Single-process golden on 8 virtual devices (this test process).
     import jax
 
-    from sphereflake_tpu.config import RenderConfig, default_scene
-    from sphereflake_tpu.parallel import make_mesh, render_gbuffer_sharded
+    from sphereflake.config import RenderConfig, default_scene
+    from sphereflake.parallel import make_mesh, render_gbuffer_sharded
 
     n_dev = nprocs * per_proc
     assert len(jax.devices()) == n_dev

@@ -7,14 +7,14 @@ import zlib
 import numpy as np
 import pytest
 
-from sphereflake_tpu.ops.noise import MT19937
-from sphereflake_tpu.ops.sobol import (
+from sphereflake.ops.noise import MT19937
+from sphereflake.ops.sobol import (
     NUM_DIMENSIONS,
     direction_numbers,
     sobol_sample_np,
 )
-from sphereflake_tpu.runtime import native
-from sphereflake_tpu.utils.image import encode_png_python
+from sphereflake.runtime import native
+from sphereflake.utils.image import encode_png_python
 
 needs_native = pytest.mark.skipif(
     not native.available(), reason="native library not built"

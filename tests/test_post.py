@@ -4,16 +4,16 @@
 import numpy as np
 import jax.numpy as jnp
 
-from sphereflake_tpu.config import RenderConfig, SSAOParams, default_scene
-from sphereflake_tpu.models import golden_post
-from sphereflake_tpu.ops import post
-from sphereflake_tpu.ops.noise import MT19937, ssao_noise_texture
-from sphereflake_tpu.ops.texture import (
+from sphereflake.config import RenderConfig, SSAOParams, default_scene
+from sphereflake.models import golden_post
+from sphereflake.ops import post
+from sphereflake.ops.noise import MT19937, ssao_noise_texture
+from sphereflake.ops.texture import (
     sample_bilinear_clamp,
     sample_bilinear_repeat,
     sample_nearest_clamp,
 )
-from sphereflake_tpu.render import render_frame, render_gbuffer
+from sphereflake.render import render_frame, render_gbuffer
 
 
 def _rand_gbuffer(h=24, w=32, seed=0):

@@ -5,9 +5,9 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 
-from sphereflake_tpu.config import RenderConfig, default_scene
-from sphereflake_tpu.render import render_gbuffer
-from sphereflake_tpu.runtime.progressive import (
+from sphereflake.config import RenderConfig, default_scene
+from sphereflake.render import render_gbuffer
+from sphereflake.runtime.progressive import (
     progressive_init,
     progressive_step,
     reset_closest_distance,
@@ -92,29 +92,38 @@ def test_scramble_modes():
     assert (np.asarray(a.normal) != np.asarray(b.normal)).any()
 
 
-def test_progressive_pallas_matches_fast_path():
-    """The production kernel serves the frameless mode too (bundle
-    frusta over spatially-sorted Sobol batches)."""
+def test_progressive_binned_matches_strict_path():
+    """The per-sample binned step (bundled ray input to the trace
+    kernel) agrees with the strict XLA path's per-sample step, normals
+    included, and rejects batches that are not whole bundles."""
     import dataclasses
 
-    cfg_f = RenderConfig(width=96, height=64, max_depth=2, tile_h=32,
-                         tile_w=32, max_frontier=128, algorithm="fast")
-    cfg_p = dataclasses.replace(cfg_f, algorithm="pallas")
+    import pytest
+
+    cfg_s = RenderConfig(width=96, height=64, max_depth=2, tile_h=32,
+                         tile_w=32, max_frontier=128, algorithm="strict")
+    cfg_b = dataclasses.replace(cfg_s, algorithm="binned")
     scene = default_scene()
 
-    sf = progressive_init(cfg_f, seed=3)
-    sp = progressive_init(cfg_p, seed=3)
-    for _ in range(3):
-        sf = progressive_step(sf, scene, cfg_f, batch_size=1024)
-        sp = progressive_step(sp, scene, cfg_p, batch_size=1024)
+    ss = progressive_init(cfg_s, seed=3)
+    sb = progressive_init(cfg_b, seed=3)
+    for _ in range(2):
+        ss = progressive_step(ss, scene, cfg_s, batch_size=1024)
+        sb = progressive_step(sb, scene, cfg_b, batch_size=1024)
 
     # Same sample stream, same scatter policy -> same covered pixels.
-    cov_f = np.asarray(sf.min_t) < 1e30
-    cov_p = np.asarray(sp.min_t) < 1e30
-    assert (cov_f == cov_p).mean() > 0.999
-    both = cov_f & cov_p
-    tf, tp = np.asarray(sf.min_t)[both], np.asarray(sp.min_t)[both]
-    assert np.isclose(tf, tp, rtol=1e-4, atol=1e-4).mean() > 0.995
+    cov_s = np.asarray(ss.min_t) < 1e30
+    cov_b = np.asarray(sb.min_t) < 1e30
+    assert (cov_s == cov_b).mean() > 0.999
+    both = cov_s & cov_b
+    ts, tb = np.asarray(ss.min_t)[both], np.asarray(sb.min_t)[both]
+    close = np.isclose(ts, tb, rtol=1e-4, atol=1e-4)
+    assert close.mean() > 0.995
+    nd = np.abs(np.asarray(ss.normal)[both][close]
+                - np.asarray(sb.normal)[both][close])
+    assert (nd.max(axis=-1) < 1e-3).mean() > 0.98
+    with pytest.raises(ValueError, match="batch_size"):
+        progressive_step(sb, scene, cfg_b, batch_size=1000)
 
 
 def test_progressive_binned_matches_fast_path():
@@ -165,8 +174,8 @@ def test_prepared_pairs_match_unprepared():
     BIT-IDENTICAL steps."""
     import numpy as np
 
-    from sphereflake_tpu.config import RenderConfig, default_scene
-    from sphereflake_tpu.runtime.progressive import (
+    from sphereflake.config import RenderConfig, default_scene
+    from sphereflake.runtime.progressive import (
         progressive_init,
         progressive_prepare,
         progressive_step,
@@ -188,17 +197,17 @@ def test_prepared_pairs_match_unprepared():
 
 
 def test_tile_progressive_matches_full_render():
-    """TPU-native frameless mode: whole 1024-ray TILES are the refresh
-    unit (the reference refreshes 8-ray packets; per-PIXEL scatter
-    costs ~25x more than dense tile writes on TPU — docs/PERF.md).
+    """Tile-granular frameless mode: whole 1024-ray TILES are the
+    refresh unit (the reference refreshes 8-ray packets; tiles are
+    dense block writes instead of per-pixel scatters).
     Covered tiles must match the full render (up to interpret-mode
     tangent fuzz, cf. test_binned's banded note), uncovered tiles stay
     sky, and coverage accumulates across steps."""
     import numpy as np
 
-    from sphereflake_tpu.config import RenderConfig, default_scene
-    from sphereflake_tpu.render import render_gbuffer
-    from sphereflake_tpu.runtime.progressive import (
+    from sphereflake.config import RenderConfig, default_scene
+    from sphereflake.render import render_gbuffer
+    from sphereflake.runtime.progressive import (
         progressive_prepare,
         progressive_tiles_init,
         progressive_tiles_step,
@@ -237,9 +246,9 @@ def test_tile_progressive_composite_matches_render_frame():
     `render_frame` of the same scene."""
     import numpy as np
 
-    from sphereflake_tpu.config import RenderConfig, default_scene
-    from sphereflake_tpu.render import render_frame
-    from sphereflake_tpu.runtime.progressive import (
+    from sphereflake.config import RenderConfig, default_scene
+    from sphereflake.render import render_frame
+    from sphereflake.runtime.progressive import (
         progressive_prepare,
         progressive_tiles_init,
         progressive_tiles_step,
@@ -269,8 +278,8 @@ def test_tile_progressive_mid_flight_composite_runs():
     vsync, including unwritten sky texels)."""
     import numpy as np
 
-    from sphereflake_tpu.config import RenderConfig, default_scene
-    from sphereflake_tpu.runtime.progressive import (
+    from sphereflake.config import RenderConfig, default_scene
+    from sphereflake.runtime.progressive import (
         progressive_prepare,
         progressive_tiles_init,
         progressive_tiles_step,
@@ -296,8 +305,8 @@ def test_frameless_animate_overwrites_stale_tiles():
     the previous view's content."""
     import numpy as np
 
-    from sphereflake_tpu.config import RenderConfig, default_scene
-    from sphereflake_tpu.runtime.animate import frameless_animate
+    from sphereflake.config import RenderConfig, default_scene
+    from sphereflake.runtime.animate import frameless_animate
 
     scene = default_scene()
     cfg = RenderConfig(width=128, height=96, max_depth=2, tile_h=32,
@@ -334,8 +343,8 @@ def test_trimmed_prepare_is_output_invisible(depth):
     (the trim recovers |c| and r from the rc/rc4 rows by position)."""
     import numpy as np
 
-    from sphereflake_tpu.config import RenderConfig, default_scene
-    from sphereflake_tpu.runtime.progressive import (
+    from sphereflake.config import RenderConfig, default_scene
+    from sphereflake.runtime.progressive import (
         progressive_prepare,
         progressive_prepare_trimmed,
         progressive_tiles_init,
@@ -370,8 +379,8 @@ def test_overflow_is_accumulated_never_silent():
     after step, so a capacity problem is visible to the driver (the
     CLI warns / retries the prepare via the capacity ladder) instead
     of silently rendering with missing geometry."""
-    from sphereflake_tpu.config import RenderConfig, default_scene
-    from sphereflake_tpu.runtime.progressive import (
+    from sphereflake.config import RenderConfig, default_scene
+    from sphereflake.runtime.progressive import (
         progressive_prepare,
         progressive_tiles_init,
         progressive_tiles_step,
@@ -413,8 +422,8 @@ def test_sobol_cursor_carries_into_hi_word_at_wrap():
     """Power-of-two step sizes land the 64-bit Sobol cursor exactly on
     the 2^32 boundary; the hi word must pick up the carry there or the
     stream restarts (a ~70-minute horizon at 1G rays/s)."""
-    from sphereflake_tpu.config import RenderConfig, default_scene
-    from sphereflake_tpu.runtime.progressive import (
+    from sphereflake.config import RenderConfig, default_scene
+    from sphereflake.runtime.progressive import (
         progressive_prepare,
         progressive_tiles_init,
         progressive_tiles_step,
@@ -446,8 +455,8 @@ def test_grow_frameless_capacity_ladder():
     table, so spinning into the banded rung would be futile)."""
     import pytest
 
-    from sphereflake_tpu.config import RenderConfig
-    from sphereflake_tpu.runtime.progressive import (
+    from sphereflake.config import RenderConfig
+    from sphereflake.runtime.progressive import (
         grow_frameless_capacity,
     )
 
@@ -466,8 +475,8 @@ def test_frameless_approach_holds_position_on_all_sky_frames():
     _BIG and must NOT fling the camera (3e38 * 0.05 ~ f32 overflow) —
     the camera coasts on the last known value, or holds still if
     nothing was ever hit."""
-    from sphereflake_tpu.config import RenderConfig, default_scene
-    from sphereflake_tpu.runtime.animate import frameless_animate
+    from sphereflake.config import RenderConfig, default_scene
+    from sphereflake.runtime.animate import frameless_animate
 
     scene = default_scene()
     # Look AWAY from the fractal: every refreshed tile is sky.

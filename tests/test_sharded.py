@@ -5,13 +5,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from sphereflake_tpu.config import RenderConfig, default_scene
-from sphereflake_tpu.parallel import (
+from sphereflake.config import RenderConfig, default_scene
+from sphereflake.parallel import (
     fit_step_sharded,
     make_mesh,
     render_gbuffer_sharded,
 )
-from sphereflake_tpu.render import render_gbuffer
+from sphereflake.render import render_gbuffer
 
 
 def test_eight_devices_available():
@@ -132,22 +132,25 @@ def test_sharded_render_binned_matches_single_device():
     assert agree.mean() > 0.995
 
 
-def test_sharded_render_pallas_matches_single_device():
-    """The Pallas production kernel must run under shard_map with the
-    same output as its single-device run (VERDICT round-1 item 5)."""
+def test_sharded_banded_blocks_2x2_match_single_device():
+    """The per-block binned path (each device expands and bins its own
+    block, in bands) under a 2x2 shard_map matches the single-device
+    render; banding rules out the shared-bin path here."""
+    from sphereflake.parallel.shared_bin import shared_bin_supported
+
     cfg = RenderConfig(
         width=256, height=128, max_depth=2, tile_h=32, tile_w=32,
-        max_frontier=128, algorithm="pallas",
+        max_frontier=128, algorithm="binned", band_tile_rows=1,
     )
     scene = default_scene()
     mesh = make_mesh(jax.devices()[:4], shape=(2, 2))
+    assert not shared_bin_supported(cfg, mesh)
     gb_s = render_gbuffer_sharded(scene, cfg, mesh)
     gb_1 = render_gbuffer(scene, cfg)
     np.testing.assert_array_equal(np.asarray(gb_s.hit), np.asarray(gb_1.hit))
-    # Block tiling changes each tile's frustum (block-local tiles) and
-    # the sharded block path computes dirs in a different (AoS) op
-    # order than the single-device SoA pipeline, so isolated near-tie
-    # winner flips are legitimate; everything else matches to f32 noise.
+    # Per-block bins see other frusta than the whole-frame bin, so
+    # isolated near-tie winner flips are legitimate; everything else
+    # matches to f32 noise.
     agree = np.isclose(
         np.asarray(gb_s.min_t), np.asarray(gb_1.min_t), atol=1e-4, rtol=1e-4
     )
@@ -164,9 +167,9 @@ def test_render_frame_sharded_matches_single():
     to the usual interpret-mode silhouette fuzz."""
     import numpy as np
 
-    from sphereflake_tpu.config import RenderConfig, default_scene
-    from sphereflake_tpu.parallel import make_mesh, render_frame_sharded
-    from sphereflake_tpu.render import render_frame
+    from sphereflake.config import RenderConfig, default_scene
+    from sphereflake.parallel import make_mesh, render_frame_sharded
+    from sphereflake.render import render_frame
 
     scene = default_scene()
     cfg = RenderConfig(width=256, height=128, max_depth=3, tile_h=32,
@@ -192,9 +195,9 @@ def test_banded_blocks_compose_with_sharding():
 
     import numpy as np
 
-    from sphereflake_tpu.config import RenderConfig, default_scene
-    from sphereflake_tpu.parallel import make_mesh, render_gbuffer_sharded
-    from sphereflake_tpu.render import render_gbuffer
+    from sphereflake.config import RenderConfig, default_scene
+    from sphereflake.parallel import make_mesh, render_gbuffer_sharded
+    from sphereflake.render import render_gbuffer
 
     scene = default_scene()
     mesh = make_mesh(jax.devices()[:8])  # 2x4
@@ -217,9 +220,9 @@ def test_render_frame_sharded_downscaled_ssao():
     fallback). Both must match single-device."""
     import numpy as np
 
-    from sphereflake_tpu.config import RenderConfig, default_scene
-    from sphereflake_tpu.parallel import make_mesh, render_frame_sharded
-    from sphereflake_tpu.render import render_frame
+    from sphereflake.config import RenderConfig, default_scene
+    from sphereflake.parallel import make_mesh, render_frame_sharded
+    from sphereflake.render import render_frame
 
     scene = default_scene()
     mesh = make_mesh(jax.devices()[:8])  # 2x4
@@ -235,7 +238,7 @@ def test_render_frame_sharded_downscaled_ssao():
 
 def test_render_frames_dp_matches_sequential():
     """Frame-data-parallel rendering: N devices render N DIFFERENT
-    frames through the full pipeline — the TPU-native answer to
+    frames through the full pipeline — the answer to
     small-frame fleets (screen-tile sharding of one small frame is
     fixed-cost-limited). Batched output must match sequential
     single-device renders."""
@@ -243,9 +246,9 @@ def test_render_frames_dp_matches_sequential():
 
     import numpy as np
 
-    from sphereflake_tpu.config import RenderConfig, default_scene
-    from sphereflake_tpu.parallel import make_frame_mesh, render_frames_dp
-    from sphereflake_tpu.render import render_frame
+    from sphereflake.config import RenderConfig, default_scene
+    from sphereflake.parallel import make_frame_mesh, render_frames_dp
+    from sphereflake.render import render_frame
 
     scene = default_scene()
     cfg = RenderConfig(width=128, height=64, max_depth=2, tile_h=32,
@@ -281,12 +284,12 @@ def test_sharded_frameless_matches_single_device_tiles():
     run uses (same global tile id, camera vector, pair table), so at
     full coverage the sharded state must equal the single-device
     frameless state tile-for-tile — and the full render."""
-    from sphereflake_tpu.parallel import (
+    from sphereflake.parallel import (
         sharded_tiles_as_single,
         sharded_tiles_init,
         sharded_tiles_step,
     )
-    from sphereflake_tpu.runtime.progressive import (
+    from sphereflake.runtime.progressive import (
         progressive_prepare,
         progressive_tiles_init,
         progressive_tiles_step,
@@ -332,11 +335,11 @@ def test_sharded_frameless_matches_single_device_tiles():
 def test_sharded_frameless_partial_coverage_is_block_local():
     """Before convergence each device has only touched its own block:
     covered tiles of device (iy, ix) all lie inside its block."""
-    from sphereflake_tpu.parallel import (
+    from sphereflake.parallel import (
         sharded_tiles_init,
         sharded_tiles_step,
     )
-    from sphereflake_tpu.runtime.progressive import progressive_prepare
+    from sphereflake.runtime.progressive import progressive_prepare
 
     cfg = RenderConfig(width=256, height=128, max_depth=2, tile_h=32,
                        tile_w=32, algorithm="binned")
@@ -362,8 +365,8 @@ def test_shared_bin_matches_single_device():
     must reproduce the single-device render — hit-identical, ulp-close
     values (cross-program XLA fusion can contract cc/rc differently,
     flipping tangent-graze bits) — and identical metrics."""
-    from sphereflake_tpu.parallel import shared_bin_supported
-    from sphereflake_tpu.parallel.shared_bin import render_gbuffer_shared
+    from sphereflake.parallel import shared_bin_supported
+    from sphereflake.parallel.shared_bin import render_gbuffer_shared
 
     cfg = RenderConfig(width=256, height=128, max_depth=3, tile_h=32,
                        tile_w=32, algorithm="binned")
@@ -396,8 +399,8 @@ def test_shared_bin_is_default_sharded_path_and_differentiable():
     (image-loss fitting over a mesh differentiates this path)."""
     import jax
 
-    from sphereflake_tpu.parallel import shared_bin_supported
-    from sphereflake_tpu.render import render_gbuffer
+    from sphereflake.parallel import shared_bin_supported
+    from sphereflake.render import render_gbuffer
 
     cfg = RenderConfig(width=128, height=64, max_depth=2, tile_h=32,
                        tile_w=32, algorithm="binned")
@@ -432,8 +435,8 @@ def test_image_loss_fit_over_mesh():
 
     import optax
 
-    from sphereflake_tpu.fit import fit, ssao_only
-    from sphereflake_tpu.parallel import render_frame_sharded
+    from sphereflake.fit import fit, ssao_only
+    from sphereflake.parallel import render_frame_sharded
 
     scene = default_scene()
     cfg = RenderConfig(width=128, height=64, max_depth=2, tile_h=32,

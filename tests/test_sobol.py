@@ -9,7 +9,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sphereflake_tpu.ops.sobol import (
+from sphereflake.ops.sobol import (
     N_BITS,
     NUM_DIMENSIONS,
     direction_numbers,

@@ -4,10 +4,10 @@ match the per-ray NumPy golden tracer."""
 import numpy as np
 import jax.numpy as jnp
 
-from sphereflake_tpu.config import CameraParams, FractalParams, RenderConfig, default_scene
-from sphereflake_tpu.models import golden
-from sphereflake_tpu.ops.traversal import shade_gbuffer, trace_rays
-from sphereflake_tpu.render import render_gbuffer
+from sphereflake.config import CameraParams, FractalParams, RenderConfig, default_scene
+from sphereflake.models import golden
+from sphereflake.ops.traversal import shade_gbuffer, trace_rays
+from sphereflake.render import render_gbuffer
 
 
 def _compare_to_golden(dirs64, cam_pos, cfg, atol=1e-3, miss_frac=0.0, cos_tight=0.999, frac_tight=0.99):

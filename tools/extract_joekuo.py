@@ -18,19 +18,21 @@ solved from the recurrence
 one bit at a time, then the full table is re-generated and verified
 bit-exact against the source before the parameter file is written.
 
-Output: sphereflake_tpu/ops/_joekuo.py (s, a, m triples for dims
+Output: sphereflake/ops/_joekuo.py (s, a, m triples for dims
 1..1023; dim 0 is van der Corput).
 """
 from __future__ import annotations
 
+import os
 import re
 import sys
 
 import numpy as np
 
 SRC = "/root/reference/sphereflake/Sobol.cpp"
-OUT = "/root/repo/sphereflake_tpu/ops/_joekuo.py"
-OUT_H = "/root/repo/native/joekuo_params.h"
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT = os.path.join(_REPO, "sphereflake", "ops", "_joekuo.py")
+OUT_H = os.path.join(_REPO, "native", "joekuo_params.h")
 NDIM, NBITS = 1024, 52
 
 

@@ -1,9 +1,9 @@
 """BASELINE config-4 evidence: gradient-descent fitting of fractal +
-camera parameters against a 4K depth-8 target, on the real chip.
+camera parameters against a 4K depth-8 target, on the GPU.
 
 Renders a 3840x2160 depth-8 target G-buffer at the reference pose,
 perturbs yaw and the child radius ratio, and runs a few Adam steps of
-`fit.fit` (forward = the fused binned kernel; backward = the
+`fit.fit` (forward = the binned trace kernel; backward = the
 straight-through path-code recompute custom JVP). Prints the loss
 trajectory — it must decrease.
 
@@ -16,21 +16,18 @@ import os
 import sys
 import time
 
-_here = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, _here)
-sys.path.insert(0, os.path.dirname(_here))  # repo root for the package
-from _common import setup_cache
-
-setup_cache()
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-from sphereflake_tpu.config import RenderConfig, default_scene
-from sphereflake_tpu.fit import fit
-from sphereflake_tpu.render import render_gbuffer
+from sphereflake.backend import setup_compile_cache
+from sphereflake.config import RenderConfig, default_scene
+from sphereflake.fit import fit
+from sphereflake.render import render_gbuffer
 
 
 def main(steps=4):
+    setup_compile_cache()
     dev = jax.devices()[0]
     print(f"device: {dev.platform} {dev.device_kind}", file=sys.stderr)
     cfg = RenderConfig(width=3840, height=2160, max_depth=8, tile_h=32,

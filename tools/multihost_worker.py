@@ -2,7 +2,7 @@
 
 Launched N times (one per "host") by tests/test_multihost.py or by a
 real pod launcher. Each process contributes its local (virtual CPU or
-real TPU) devices to the global mesh, renders its address-space slice
+real GPU) devices to the global mesh, renders its address-space slice
 of the frame, runs one sharded fit step, and writes its locally-owned
 shards plus the (replicated) loss/grad fingerprint to an npz for the
 launcher to stitch and compare against the single-process render.
@@ -23,7 +23,7 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from sphereflake_tpu.parallel.distributed import (
+    from sphereflake.parallel.distributed import (
         global_mesh,
         initialize_distributed,
     )
@@ -35,8 +35,8 @@ def main():
 
     import numpy as np
 
-    from sphereflake_tpu.config import RenderConfig, default_scene
-    from sphereflake_tpu.parallel import fit_step_sharded, render_gbuffer_sharded
+    from sphereflake.config import RenderConfig, default_scene
+    from sphereflake.parallel import fit_step_sharded, render_gbuffer_sharded
 
     n_dev = len(jax.devices())
     mesh = global_mesh(shape=(n_dev, 1))  # row-bands: host-contiguous

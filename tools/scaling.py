@@ -1,19 +1,16 @@
 """Scaling-efficiency harness (BASELINE: >=90% linear multi-host).
 
-Measures sharded-render throughput vs device count on whatever platform
-is available:
-
-- CPU (default off-TPU): N virtual host devices in-process; optionally
-  `--processes K` to measure the multi-process (DCN-analogue) path.
-- TPU: real devices after `jax.distributed` init (run one process per
-  host with JAX_COORDINATOR_ADDRESS etc).
+Measures sharded-render throughput vs device count on the local GPUs
+(one process drives them all). `--cpu` runs the same sweep on N
+virtual host devices instead: a rehearsal of the mesh logic, whose
+times say nothing about a GPU.
 
 Efficiency = throughput(N) / (N * throughput(1)). Rays are independent
 in the forward pass, so the ideal is flat per-device throughput; the
 harness reports where reality falls off.
 
 Usage: python tools/scaling.py [--devices 1 2 4 8] [--frames 8]
-       [--width 1024 --height 512 --depth 4]
+       [--width 1024 --height 512 --depth 4] [--cpu]
 """
 from __future__ import annotations
 
@@ -25,11 +22,10 @@ def measure(n_dev, args):
     import dataclasses
 
     import jax
-    import jax.numpy as jnp
     import numpy as np
 
-    from sphereflake_tpu.config import RenderConfig, default_scene
-    from sphereflake_tpu.parallel import make_mesh, render_gbuffer_sharded
+    from sphereflake.config import RenderConfig, default_scene
+    from sphereflake.parallel import make_mesh, render_gbuffer_sharded
 
     devices = jax.devices()[:n_dev]
     mesh = make_mesh(devices, shape=(n_dev, 1))
@@ -55,20 +51,13 @@ def measure(n_dev, args):
         )
         return gb.min_t[0, 0]
 
-    _ = float(np.asarray(frame(0)))  # compile
-    # Latency-amortized: dispatch k frames, block once.
-    def run(k):
+    jax.block_until_ready(frame(0))  # compile
+    ts = []
+    for i in range(args.frames):
         t0 = time.perf_counter()
-        outs = [frame(1 + i) for i in range(k)]
-        _ = float(np.asarray(jnp.stack(outs).sum()))
-        return time.perf_counter() - t0
-
-    run(2)
-    t1 = run(1)
-    tk = run(args.frames + 1)
-    dt = (tk - t1) / args.frames
-    rays = cfg.width * cfg.height
-    return rays / dt
+        jax.block_until_ready(frame(1 + i))
+        ts.append(time.perf_counter() - t0)
+    return cfg.width * cfg.height / float(np.median(ts))
 
 
 def main():
@@ -83,14 +72,22 @@ def main():
     ap.add_argument("--tile-w", dest="tile_w", type=int, default=32)
     ap.add_argument("--max-frontier", dest="max_frontier", type=int,
                     default=512)
-    ap.add_argument("--algorithm", default="fast")
-    ap.add_argument("--cpu", action="store_true")
+    ap.add_argument("--algorithm", default="binned")
+    ap.add_argument("--cpu", action="store_true",
+                    help="rehearse on virtual CPU devices (no timings "
+                    "of any GPU)")
     args = ap.parse_args()
 
     import jax
 
-    if args.cpu or jax.default_backend() not in ("tpu",):
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    else:
+        from sphereflake.backend import kernel_route
+
+        if kernel_route() != "triton":
+            raise SystemExit("scaling.py measures GPUs; pass --cpu to "
+                             "rehearse on virtual CPU devices")
 
     n_avail = len(jax.devices())
     counts = args.devices or [
